@@ -2,7 +2,7 @@
 //
 // Role: the reference ships OpenMP twins of its Python simulators for
 // high-trial-count runs (rfhe_framewk/src/four_step_ntt_protected.cpp,
-// ntt_test/relia_ntt_sim.cpp).  This library plays that role for the TPU
+// ntt_test/relia_ntt_sim.cpp).  This library plays that role for the GPU
 // framework: exact op-granularity semantics (butterfly-level injection
 // inside radix-2 NTT stages) that the vectorized JAX campaigns model at
 // stage level, plus a fast 3-stage pipeline MC.  Exposed via C ABI for

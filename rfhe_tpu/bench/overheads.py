@@ -121,6 +121,9 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", type=str, default="results")
     args = ap.parse_args(argv)
+    from . import device
+    device.require_gpu()
+    print(device.banner())
     res = measure(args.n, args.batch, iters=args.iters)
     Path(args.out).mkdir(parents=True, exist_ok=True)
     path = f"{args.out}/atom_overheads.csv"

@@ -182,6 +182,9 @@ def main(argv=None) -> None:
     ap.add_argument("--levels", type=int, default=3)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
+    from . import device
+    device.require_gpu()
+    print(device.banner())
     if args.scheme in ("ckks", "all"):
         print(f"== CKKS performance (n={args.n}, levels={args.levels}) ==")
         for op, us in ckks_performance_test(args.n, args.levels,

@@ -1,6 +1,6 @@
 """Protection overhead measured ON THE PRODUCTION PATH (VERDICT round-2
 item #2): protected-vs-plain device time of the kernels the scheme layer
-actually runs — the fused/MXU NTT with the NttGuard projection, the checked
+actually runs — the int8-matmul NTT with the NttGuard projection, the checked
 dyadic Montgomery MAC, and the full protected rotation / multiply+relin
 (fhe/protected.py) against the plain evaluator.
 
@@ -57,9 +57,9 @@ def measure(n: int, levels: int, batch: int = 8):
         ok = guard.check_fwd(v, y)
         return y + ok[..., None].astype(jnp.uint32)
 
-    # atom bodies are ~3-40 us: at small rep counts the chained-dispatch
-    # host floor (~2-3 ms/call) exceeds body^r device time and the slope
-    # collapses to 0 — reps must push the r2 program well past the floor
+    # atom bodies are small: at small rep counts the chained-dispatch host
+    # floor can exceed body^r device time and the slope collapses to 0 —
+    # reps must push the r2 program well past the floor
     t_p = device_time(ntt_plain, x, r1=128, r2=1024)
     t_g = device_time(ntt_prot, x, r1=128, r2=1024)
     rows.append({"atom": "NTT(guarded)", "plain_us": t_p * 1e6,
@@ -145,6 +145,9 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--csv", default=None)
     args = ap.parse_args(argv)
+    from . import device
+    device.require_gpu()
+    print(device.banner())
     rows = measure(args.n, args.levels, args.batch)
     cols = ["atom", "plain_us", "prot_us", "overhead"]
     w = csv.DictWriter(sys.stdout, fieldnames=cols)

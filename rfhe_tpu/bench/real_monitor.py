@@ -3,13 +3,13 @@
 The reference stresses an overclocked GPU with 8 shell-parallel processes x
 1000 runs of a clean NTT executed twice and diffed, logging clocks before
 each run (reliability_test/run_real_test.sh:1-36, ntt_real_test.cu) — any
-nonzero Hamming distance is a genuine silent hardware fault.  TPUs expose
-no overclock knob, so this is the monitoring half only: run the production
+nonzero Hamming distance is a genuine silent hardware fault.  nvidia-smi
+on the measurement machine can set no clocks, so this is the monitoring
+half only: run the production
 batched NTT (and a zero-injection encrypted dot product every `--dot-every`
 iterations) clean-vs-clean for --runs iterations and log one line per run.
 
-A campaign-scale log is committed at results/real_monitor_log.txt; any
-line with hamming != 0 would be a silent-fault capture (the reference's
+Any line with hamming != 0 is a silent-fault capture (the reference's
 errorset.txt analog).
 
 Usage: python -m rfhe_tpu.bench.real_monitor [--runs 1000] [--log-dim 12]
@@ -35,6 +35,9 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results/real_monitor_log.txt")
     args = ap.parse_args(argv)
+    from . import device
+    device.require_gpu()
+    print(device.banner())
 
     import jax
     import numpy as np

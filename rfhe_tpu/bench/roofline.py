@@ -1,15 +1,14 @@
-"""NTT roofline accounting: measured butterflies/s and MAC/s vs per-chip
-peaks (VERDICT round-1 item #2; plays the role of the reference's batched
+"""NTT roofline accounting: measured butterflies/s and MAC/s vs the
+device's published peaks (plays the role of the reference's batched
 radix-8 device-NTT throughput measurement, reliability_test/ntt_test.cu:95
 driven by run_bench_test.sh).
 
-Peaks are the published TPU v5e (v5 lite) per-chip numbers:
-  int8  MXU: 394 TOPS          bf16 MXU: 197 TFLOPS
-  HBM BW:    819 GB/s          (Google Cloud TPU v5e spec sheet)
+Peaks come from bench/device.PEAKS, keyed by device_kind; a device not in
+that table is an error.
 
 Work accounting per negacyclic transform of size n (one limb):
   radix-2 butterfly count  : (n/2)·log2(n)  (the classic NTT work metric)
-  MXU path int8 MACs       : n·(n1 + n2)·nd_x·nd_w   (four-step matmuls)
+  int8 matmul MACs         : n·(n1·nd_x·nd_w + n2·nd_x·nd_w)  (four-step)
   HBM floor bytes          : 2·4·n           (read coeffs + write slots)
 
 Usage: python -m rfhe_tpu.bench.roofline [--n 4096] [--limbs 21]
@@ -24,12 +23,10 @@ import sys
 
 import numpy as np
 
-V5E_INT8_OPS = 394e12       # MAC+add counted as 2 ops
-V5E_BF16_FLOPS = 197e12
-V5E_HBM_BPS = 819e9
+from . import device
 
 
-def measure(n: int, limbs: int, batch: int, qbits: int = 30):
+def measure(n: int, limbs: int, batch: int, peaks: dict, qbits: int = 30):
     import jax
     import jax.numpy as jnp
     from .. import numth
@@ -45,19 +42,8 @@ def measure(n: int, limbs: int, batch: int, qbits: int = 30):
     rows = []
 
     mp = MxuNttPlan.make(n, primes)
-    from ..ops import ntt_mxu
-    timings = []
-    if mp.fused is not None and ntt_mxu._use_fused():
-        timings.append(("fused_fwd", device_time(mp.fused.fwd, x)))
-        timings.append(("fused_inv", device_time(mp.fused.inv, x)))
-    # force the XLA composition (the CPU / fallback path)
-    saved = ntt_mxu._FUSED_ENABLED
-    ntt_mxu._FUSED_ENABLED = False
-    try:
-        timings.append(("mxu_fwd", device_time(mp.fwd, x)))
-        timings.append(("mxu_inv", device_time(mp.inv, x)))
-    finally:
-        ntt_mxu._FUSED_ENABLED = saved
+    timings = [("mxu_fwd", device_time(mp.fwd, x)),
+               ("mxu_inv", device_time(mp.inv, x))]
     pp = ntt_pease.PeaseNttPlan.make(n, primes)
     timings.append(("pease_fwd",
                     device_time(lambda a: ntt_pease.negacyclic_ntt(a, pp), x)))
@@ -76,12 +62,14 @@ def measure(n: int, limbs: int, batch: int, qbits: int = 30):
             "device_us_per_call": round(t * 1e6, 2),
             "transforms_per_s": round(tps, 1),
             "butterflies_per_s": f"{tps * bfly:.3e}",
-            "hbm_floor_pct": round(100 * tps * hbm / V5E_HBM_BPS, 2),
+            "hbm_floor_pct": round(
+                100 * tps * hbm / peaks["hbm_bytes_per_s"], 2),
         }
-        if name.startswith(("mxu", "fused")):
+        if name.startswith("mxu"):
             ops = 2 * tps * macs           # MAC = mul+add
             row["int8_ops_per_s"] = f"{ops:.3e}"
-            row["mxu_peak_pct"] = round(100 * ops / V5E_INT8_OPS, 2)
+            row["int8_peak_pct"] = round(
+                100 * ops / peaks["int8_ops_per_s"], 2)
         rows.append(row)
     return rows
 
@@ -93,14 +81,16 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--qbits", type=int, default=30,
                     help="prime width; narrower primes need fewer int8 "
-                         "digit groups (the VPU-recombination-ceiling "
-                         "experiment, PERF.md)")
+                         "digit groups")
     ap.add_argument("--csv", default=None)
     args = ap.parse_args(argv)
-    rows = measure(args.n, args.limbs, args.batch, qbits=args.qbits)
+    device.require_gpu()
+    print(device.banner())
+    rows = measure(args.n, args.limbs, args.batch,
+                   device.peaks(device.device_info()["kind"]), qbits=args.qbits)
     cols = ["impl", "n", "limbs", "batch", "device_us_per_call",
             "transforms_per_s", "butterflies_per_s", "hbm_floor_pct",
-            "int8_ops_per_s", "mxu_peak_pct"]
+            "int8_ops_per_s", "int8_peak_pct"]
     w = csv.DictWriter(sys.stdout, fieldnames=cols)
     w.writeheader()
     for r in rows:

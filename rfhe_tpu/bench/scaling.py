@@ -1,14 +1,13 @@
-"""Scaling-efficiency harness (BASELINE north star: ≥80% ops/s efficiency
-from 1 chip to multi-chip/multi-host).
+"""Scaling-efficiency harness for the sharded demo four-step NTT
+(transform/distributed.py): throughput at device counts 1, 2, 4, ...
 
-Real multi-chip hardware is unavailable in this environment, so this harness
-validates the *mechanics* — mesh construction, sharded four-step NTT with
-its all_to_all transpose, limb-sharded evaluator — and measures throughput
-at varying device counts.  On the virtual CPU mesh the absolute numbers only
-validate the harness; on a real slice the same driver measures ICI scaling.
+Runs on the process's GPUs and fails when there are fewer than --devices.
+--rehearse-cpu runs it on virtual CPU devices instead, which validates only
+the mechanics (mesh construction, the all_to_all transpose); its output
+names platform=cpu.
 
-Usage: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-       python -m rfhe_tpu.bench.scaling [--n 4096] [--limbs 8]
+Usage: python -m rfhe_tpu.bench.scaling [--n 4096] [--limbs 8]
+           [--devices 4] [--rehearse-cpu]
 """
 from __future__ import annotations
 
@@ -18,7 +17,8 @@ import time
 import numpy as np
 
 
-def measure(n: int = 1024, limbs: int = 8, iters: int = 20) -> list:
+def measure(n: int = 1024, limbs: int = 8, iters: int = 20,
+            max_devices: int = 4) -> list:
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -30,7 +30,7 @@ def measure(n: int = 1024, limbs: int = 8, iters: int = 20) -> list:
     plan = FourStepPlan.make(n, q)
     rng = np.random.default_rng(0)
     x = rng.integers(0, q, size=(limbs, n), dtype=np.uint32)
-    devs = jax.devices()
+    devs = jax.devices()[:max_devices]
     rows = []
     d = 1
     while d <= len(devs) and plan.n1 % d == 0:
@@ -57,8 +57,18 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--limbs", type=int, default=8)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--devices", type=int, default=4,
+                    help="largest device count to measure")
+    ap.add_argument("--rehearse-cpu", action="store_true",
+                    help="run on virtual CPU devices (mechanics only)")
     args = ap.parse_args(argv)
-    for r in measure(args.n, args.limbs, args.iters):
+    from . import device
+    if args.rehearse_cpu:
+        device.rehearse_on_cpu(args.devices)
+    else:
+        device.require_gpu(args.devices)
+    print(device.banner())
+    for r in measure(args.n, args.limbs, args.iters, args.devices):
         print(f"devices={r['devices']}: {r['limb_transforms_per_s']:.0f} "
               f"transforms/s, efficiency={r['efficiency']:.2f}")
 

@@ -3,7 +3,7 @@
 Replaces the reference's OpenMP trial loops
 (four_step_ntt_protected.cpp:306-338, relia_ntt_sim.cpp:437-466) with
 jit(vmap(trial)) over per-trial PRNG keys: thousands of trials execute as one
-batched device program (stage matmuls become batched MXU matmuls).
+batched device program (stage matmuls become batched device matmuls).
 
 Campaigns:
   three_stage_campaign   matmul → elementwise-fold → matmul pipeline with

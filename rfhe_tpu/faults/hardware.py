@@ -1,4 +1,4 @@
-"""Hardware-style fault campaigns on real device buffers (L5) — the TPU
+"""Hardware-style fault campaigns on real device buffers (L5) — the JAX
 rebuild of reliability_test/: bit flips injected directly into device arrays
 around real kernels, clean-vs-faulty differential measurement, and the
 clean-vs-clean rerun that detects genuine silent hardware faults.
@@ -106,7 +106,7 @@ def ntt_real_test(plan: StackedNttPlan, batch: int, seed: int = 0
     """Clean-vs-clean differential: run the same NTT twice on device and
     diff.  Nonzero Hamming = genuine silent hardware fault
     (ntt_real_test.cu; the reference triggers these with GPU overclocking,
-    gpu_overclock/set_oc.sh — on TPU we simply monitor)."""
+    gpu_overclock/set_oc.sh — here we only monitor)."""
     key = jax.random.PRNGKey(seed)
     L, n = plan.L, plan.n
     qmax = int(np.asarray(plan.q_arr).min())
@@ -119,7 +119,7 @@ def ntt_real_test(plan: StackedNttPlan, batch: int, seed: int = 0
 
 def ciphertext_flip(ct_data: jnp.ndarray, global_bit_index: int,
                     word_bits: int = 32) -> jnp.ndarray:
-    """Flip one absolute bit of a ciphertext residue buffer — the TPU
+    """Flip one absolute bit of a ciphertext residue buffer — the JAX
     equivalent of the one-thread CUDA `_flip_bit_kernel`
     (dotprod_test.cu:31-33)."""
     word = global_bit_index // word_bits

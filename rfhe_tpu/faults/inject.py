@@ -30,10 +30,12 @@ def _set_flat(x_flat: jnp.ndarray, idx, value) -> jnp.ndarray:
     """flat.at[idx].set(value) in one-hot form.
 
     NOT a scatter: vmapped scatters with traced indices into a
-    trial-invariant operand silently DROP updates at batch >= ~1024 on
-    this TPU runtime (first seen as impossible miss rates in the
-    protected-evaluator campaign; see fhe/protected.py:_flip2).  The
-    one-hot where() lowers to elementwise ops only."""
+    trial-invariant operand silently dropped updates at batch >= ~1024 on
+    the first accelerator runtime this ran on (seen as impossible miss
+    rates in the protected-evaluator campaign; see
+    fhe/protected.py:_flip2).  Untested on the GPU; the campaign's
+    check_row guards it.  The one-hot where() lowers to elementwise ops
+    only."""
     onehot = jnp.arange(x_flat.shape[0]) == idx
     return jnp.where(onehot, value, x_flat)
 

@@ -16,7 +16,7 @@ This gives the paper's control comparison: without the four-step factorization
 the layered detectors collapse to a single 1/q-collision projection for
 storage faults (draw_non_4step_ntt.py figure).
 
-TPU-native formulation: the reference walks butterflies one op at a time and
+Vectorized formulation: the reference walks butterflies one op at a time and
 feeds a C++ LazyChecker; here each NTT stage is one vectorized butterfly pass
 and the bucket state is a pair of (B,) mod-q accumulators updated per stage.
 Because op ids advance block-major within a stage (matching the reference's

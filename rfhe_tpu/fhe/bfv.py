@@ -1,5 +1,5 @@
 """BFV scheme layer (L4): scale-invariant FV with a full-RNS (BEHZ-style)
-multiply, TPU-first.
+multiply, vectorized over stacked limbs.
 
 Covers the BFV surface the reference times in its perf framework
 (profile_framewk/src/framewk.cpp:14-397 `bfv_performance_test`: batch
@@ -8,10 +8,10 @@ multiply_plain, rotate rows/columns/conjugate) and the BFV rotate-fold path
 of the dot-product profile (profile_framewk/src/dotprod_bfv.cpp:48-65).
 
 Design (not a translation): the two base extensions and the final Shenoy-
-Kumaresan conversion of the BEHZ multiply are each ONE int8-digit MXU matmul
+Kumaresan conversion of the BEHZ multiply are each ONE int8-digit matmul
 (ops/baseconv.py) over pre-scaled residues |x·Q̂_j^{-1}|_{q_j}, so conversion
 overflow stays < k and the m̃ / m_sk corrections are exact; everything else
-is VPU-width u32 modular arithmetic on stacked (limb, coeff) arrays.  The
+is elementwise u32 modular arithmetic on stacked (limb, coeff) arrays.  The
 whole multiply (extend → tensor in Q∪Bsk → ⌊t·d/Q⌋ → convert back) is one
 jitted program; all three tensor components ride a leading batch axis.
 
@@ -258,8 +258,8 @@ class BfvContext:
         self.params = params
         n = params.n
         if special_bits is None:
-            # 31-bit specials at n=65536 would detach the fused NTT from
-            # the keyswitch basis (see CkksContext.__init__)
+            # 30-bit specials at n=65536: inherited policy, kept so chains
+            # do not change (see CkksContext.__init__)
             special_bits = 30 if n >= 65536 else 31
         self.dnum = dnum
         n_sp = 1 if dnum is None else -(-params.L // dnum)

@@ -67,8 +67,8 @@ class BgvContext:
         self.params = params
         n = params.n
         if special_bits is None:
-            # 31-bit specials at n=65536 would detach the fused NTT from
-            # the keyswitch basis (see CkksContext.__init__)
+            # 30-bit specials at n=65536: inherited policy, kept so chains
+            # do not change (see CkksContext.__init__)
             special_bits = 30 if n >= 65536 else 31
         self.dnum = dnum
         n_sp = 1 if dnum is None else -(-params.L // dnum)

@@ -133,12 +133,11 @@ class CkksContext:
         self.params = params
         n = params.n
         if special_bits is None:
-            # follow the chain policy (fhe/params.py): at n=65536 a 31-bit
-            # prime pushes the fused Pallas NTT's weight tables to 5 digits
-            # and off VMEM — the KEYSWITCH basis includes the special
-            # prime(s), so a 31-bit special would knock every digit/delta
-            # transform back to the XLA composition even when the
-            # ciphertext chain itself is 30-bit (round-4 verdict weak #5)
+            # follow the chain policy (fhe/params.py): 30-bit specials at
+            # n=65536.  The only stated reason was an accelerator kernel
+            # that no longer exists; the value is kept so chains and keys
+            # do not change until a GPU measurement re-derives the policy
+            # (ROADMAP.md design debt 2)
             special_bits = 30 if n >= 65536 else 31
         self.dnum = dnum                      # None -> per-limb digits
         n_sp = 1 if dnum is None else -(-params.L // dnum)

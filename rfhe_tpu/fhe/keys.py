@@ -3,7 +3,7 @@
 Keyswitch design: hybrid GHS with one special prime p and per-limb digits
 (dnum = L, α = 1) — the production-grade construction the reference's
 substrate libraries (SEAL/Phantom `switch_key`, BASELINE.md: 19.8% of
-rotation) implement, re-derived for the TPU stack:
+rotation) implement, re-derived as vectorized JAX programs:
 
   digits are plain limb residues  D_j(c) = [c]_{q_j}
   ksk_j = (b_j, a_j) over basis (q_0..q_{L-1}, p):
@@ -225,7 +225,7 @@ def compute_digits(d_coeff: jnp.ndarray, level: int, ctx: RnsContext,
 
     with_ecc=True additionally returns refs (n_used, n_lim) uint32: the
     appended-checksum references Σ_N dig[g, i] mod q_i predicted from exact
-    u64 sums of the INPUTS (the TPU rebuild of baseConv.py:42-98's
+    u64 sums of the INPUTS (the JAX rebuild of baseConv.py:42-98's
     appended-sum element; linearity of the extension mod each target
     modulus makes the column sum checkable from one exact input sum per
     source limb).  The protected evaluator (fhe/protected.py) consumes
@@ -361,8 +361,8 @@ def keyswitch(d_coeff: jnp.ndarray, ksk: KeySwitchKey, level: int,
     acc1 = _sum_digits(t1, q)
     # mod-down by the special primes, last to first (t-aware in BGV); the
     # two accumulators ride one batched drop_limb so the special-limb INTT
-    # and the delta NTT are single calls at batch 2 (not 2x batch 1 — the
-    # fused Pallas kernel's table streaming amortizes over the batch)
+    # and the delta NTT are single calls at batch 2 (not 2x batch 1: one
+    # launch sequence, and table reads amortize over the batch)
     acc = jnp.stack([acc0, acc1])
     for k_i in range(n_sp - 1, -1, -1):
         keep = list(range(active)) + sp_idx[:k_i]

@@ -1,7 +1,7 @@
 """Scheme parameter sets (L4).
 
 Moduli chains are NTT-friendly primes q ≡ 1 (mod 2N), each < 2^31 so
-residues live in uint32 on the VPU — the same regime as the reference's SEAL
+residues live in uint32 — the same regime as the reference's SEAL
 configs (10×31-bit + 11×30-bit at N=32768, profile_framewk/src/framewk.cpp:
 1123-1131).  Key material is test-grade (σ=3.2 discrete gaussian, ternary
 secrets); the framework's subject is reliability, not certified security.
@@ -50,18 +50,16 @@ class CkksParams:
         framework reaches the reference substrates' precision regime (SEAL
         uses scale 2^40..2^60 on 50-60-bit limbs,
         profile_framewk/src/dotprod_ckks.cpp:96-104) while every residue
-        stays in uint32 for the MXU/VPU datapaths: the wide word the
+        stays in uint32 for the int8-matmul and u32 datapaths: the wide word the
         reference gets from CUDA's 64-bit ALUs is replaced by one extra RNS
         limb per level.  The base q0 becomes a 31+30-bit pair for the same
         reason (the final message m·scale must survive under it)."""
         if q0_bits is None:
-            # default 31-bit base, EXCEPT at n=65536 where a 31-bit prime
-            # needs 5 weight digits and exceeds the fused Pallas kernel's
-            # VMEM budget, falling back to the XLA composition (~2.4x
-            # slower — the capacity boundary in PARITY.md and
-            # results/fused_validate_grid.csv).  30-bit keeps the default
-            # chain on the production fused path; callers that need the
-            # extra bit pass q0_bits=31 explicitly.
+            # default 31-bit base, EXCEPT 30-bit at n=65536.  The only
+            # stated reason was the memory budget of an accelerator kernel
+            # that no longer exists; the value is inherited and kept so
+            # default chains do not change (ROADMAP.md design debt 2).
+            # Callers that need the extra bit pass q0_bits=31.
             q0_bits = 30 if n >= 65536 else 31
         if scale_bits <= 30:
             bits = [q0_bits] + [scale_bits] * levels

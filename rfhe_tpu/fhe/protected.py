@@ -88,10 +88,12 @@ def _flip2(x: jnp.ndarray, limb, idx, bit) -> jnp.ndarray:
     """XOR bit into element [limb, idx] of a (L, N) array.
 
     Formulated as a one-hot XOR mask, NOT a scatter: vmapped scatters with
-    traced indices into a trial-invariant operand have been observed to
-    silently DROP updates at batch >= ~1024 on this TPU runtime (diff
-    pattern: the faulted output equaled the clean one bit-for-bit — the
-    flip vanished, it did not cancel).  The mask form lowers to pure
+    traced indices into a trial-invariant operand were observed to
+    silently DROP updates at batch >= ~1024 on the first accelerator
+    runtime this ran on (the faulted output equaled the clean one
+    bit-for-bit — the flip vanished, it did not cancel).  Whether a GPU
+    scatter is exact here is untested; evaluator_campaign.check_row
+    guards the campaign either way.  The mask form lowers to pure
     elementwise ops and is immune; cost is one L*N compare per flip."""
     onehot = (jnp.arange(x.shape[0])[:, None] == limb) \
         & (jnp.arange(x.shape[1])[None, :] == idx)

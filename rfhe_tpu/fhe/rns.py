@@ -3,7 +3,7 @@
 An RnsPoly is a uint32 array of shape (L, N): limb j holds the coefficients
 (or NTT-domain slots, Montgomery form) of the polynomial mod q_j.  One
 stacked NTT (ops.ntt.StackedNttPlan) transforms all limbs in a single traced
-program — the TPU replacement for the reference substrate's per-limb batched
+program — the counterpart of the reference substrate's per-limb batched
 CUDA NTT (reliability_test/ntt_test.cu:44-95).
 
 Domain conventions (ops/ntt.py): NTT-domain slots are in the Montgomery
@@ -226,8 +226,7 @@ def drop_limb(data: jnp.ndarray, src_k: int, n_keep,
 
     data may carry leading batch dims (..., nk+1, N): the keyswitch stacks
     its two accumulators so the special-limb INTT and the delta NTT run as
-    ONE batched transform each instead of two half-size calls (the fused
-    Pallas kernel amortizes its per-call table streaming over the batch).
+    ONE batched transform each instead of two half-size calls.
 
     CKKS / plain mode (t=None): δ = [data_src] (centered lift).
     BGV mode (t given): δ additionally satisfies δ ≡ 0 (mod t), i.e.

@@ -50,7 +50,7 @@ def fig_rotation(args):
         bottom += frac
     ax.set_xlabel("polynomial degree N")
     ax.set_ylabel("rotation cost (µs)")
-    ax.set_title("CKKS rotation cost breakdown (TPU, measured)")
+    ax.set_title("CKKS rotation cost breakdown (measured)")
     ax.legend()
     print(save(fig, args.out, "rotation_breakdown.png"))
     fig, ax = new_fig()
@@ -58,7 +58,7 @@ def fig_rotation(args):
     ax.set_yscale("log")
     ax.set_xlabel("polynomial degree N")
     ax.set_ylabel("rotation latency (µs, log)")
-    ax.set_title("CKKS rotation latency vs polydim (TPU)")
+    ax.set_title("CKKS rotation latency vs polydim")
     print(save(fig, args.out, "rotation_latency.png"))
 
 
@@ -138,7 +138,7 @@ def fig_err_scatter(args):
             color=PALETTE[1], label="k symbols, 1 flip")
     ax.set_xlabel("k")
     ax.set_ylabel("output bit-error rate")
-    ax.set_title("NTT error propagation (injected faults, measured on TPU)")
+    ax.set_title("NTT error propagation (injected faults, measured)")
     ax.legend()
     print(save(fig, args.out, "err_scatter.png"))
 
@@ -261,7 +261,7 @@ def fig_dnum(args):
                width=0.6)
         bottom += frac
     ax.set_ylabel("share of rotation cost (%)")
-    ax.set_title("CKKS rotation breakdown vs dnum (TPU, measured)")
+    ax.set_title("CKKS rotation breakdown vs dnum (measured)")
     ax.legend(fontsize=8, ncol=4)
     ax2.plot(dnums, total / 1e3, marker="o", color=PALETTE[0])
     ax2.set_xlabel("dnum (keyswitch digit groups)")
@@ -291,7 +291,7 @@ def fig_pie(args):
             left += share * 100
     ax.set_xlabel("share of cost (%)")
     ax.set_xlim(0, 100)
-    ax.set_title("Measured op composition (TPU)")
+    ax.set_title("Measured op composition")
     print(save(fig, args.out, "op_composition.png"))
 
 

@@ -1,7 +1,7 @@
 """Encrypted dot product via rotate-and-add folding — the reference's
 end-to-end campaign workload (reliability_test/dotprod_test.cu:67-185:
 encode → encrypt → multiply+relinearize+modswitch → rotate-fold tree →
-decrypt/compare), rebuilt on the TPU scheme layer.
+decrypt/compare), rebuilt on this framework's scheme layer.
 
 Works for both schemes; the fold is a log-depth rotation tree
 (dotprod_test.cu:143-148, profile_framewk/src/dotprod_ckks.cpp:49-60).

@@ -1,6 +1,7 @@
 """ctypes bindings for the native Monte-Carlo engine (native/rfhe_mc.cpp).
 
-The library is built on demand (g++ -O3 -fopenmp -shared); host-side exact
+The library is built from source on first use (g++ -O3 -fopenmp -shared;
+the binary is git-ignored, never committed); host-side exact
 op-granularity campaigns complement the vectorized on-device JAX campaigns
 the way the reference's OpenMP twins complement its Python simulators.
 """
@@ -9,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 from functools import lru_cache
 from pathlib import Path
 from typing import Dict
@@ -29,12 +31,23 @@ SCENARIOS = {
 
 
 def build(force: bool = False) -> Path:
+    """Compile the library from source if it is missing or older than the
+    source.  The build writes a private temporary file next to the target
+    and renames it into place, so processes that build at the same moment
+    never load a half-written library."""
     if _LIB.exists() and not force and \
             _LIB.stat().st_mtime >= _SRC.stat().st_mtime:
         return _LIB
-    cmd = ["g++", "-O3", "-fopenmp", "-std=c++17", "-shared", "-fPIC",
-           str(_SRC), "-o", str(_LIB)]
-    subprocess.run(cmd, check=True)
+    fd, tmp = tempfile.mkstemp(prefix=_LIB.name + ".tmp", dir=_LIB.parent)
+    os.close(fd)
+    try:
+        cmd = ["g++", "-O3", "-fopenmp", "-std=c++17", "-shared", "-fPIC",
+               str(_SRC), "-o", tmp]
+        subprocess.run(cmd, check=True)
+        os.replace(tmp, _LIB)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     return _LIB
 
 

@@ -216,7 +216,7 @@ def base_conv_matrix(moduli_in: Sequence[int], moduli_out: Sequence[int]) -> Lis
     weight matrix.  Approximate CRT interpolation:
         y_k = sum_j ((r_j * inv_hat_p[j]) mod p_j) * (hat_p[j] mod q_k)  mod q_k
     but the reference uses the unreduced form r_j * (hat_p[j]*inv_hat_p[j] mod q_k)
-    (baseConv.py:27-29); we precompute per-(j,k) weights for the MXU matmul.
+    (baseConv.py:27-29); we precompute per-(j,k) weights for the int8 digit matmul.
     """
     P, hat_p, inv_hat_p = crt_constants(moduli_in)
     return [

@@ -1,5 +1,6 @@
-"""L1 device kernels: u32 modular arithmetic, modular matmul on the MXU,
-NTT kernels (Stockham VPU path + four-step MXU path), RNS base conversion."""
+"""L1 device ops: u32 modular arithmetic, int8-digit modular matmul, NTTs
+(elementwise butterfly paths + the four-step matmul path), RNS base
+conversion."""
 from . import u32  # noqa: F401
 from .u32 import (  # noqa: F401
     mul32_parts,

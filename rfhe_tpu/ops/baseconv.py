@@ -1,8 +1,8 @@
-"""RNS base conversion as one MXU matmul (+ optional appended checksum row).
+"""RNS base conversion as one int8-digit matmul (+ optional appended checksum row).
 
 The CRT interpolation y_k[i] = Σ_j r_j[i] · ((P/p_j)(P/p_j)^{-1} mod q_k)
 is literally an (N × m_in) @ (m_in × m_out) matrix product of residues by a
-precomputed weight matrix — MXU-shaped.  Per-output-limb moduli differ, so
+precomputed weight matrix — one matmul.  Per-output-limb moduli differ, so
 digit-partial recombination uses *vectorized* Montgomery constants (arrays of
 q_k / q_k' broadcast over columns).
 

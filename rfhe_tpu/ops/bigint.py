@@ -2,7 +2,7 @@
 
 The reference's Barrett/Montgomery Monte-Carlo simulators work with 37-bit
 primes and intermediates up to ~112 bits (t = x·mu), using Python ints /
-Boost cpp_int (barret_modmul.py, montgomery_modmul.cpp).  On TPU those become
+Boost cpp_int (barret_modmul.py, montgomery_modmul.cpp).  Here those become
 (..., L)-shaped uint32 arrays with static-unrolled carry chains — fully
 vectorized over the 8192-element working vectors and vmappable over trials.
 

@@ -1,4 +1,4 @@
-"""Fused-digit modular matmul against a *constant* matrix, on the MXU.
+"""Fused-digit modular matmul against a *constant* matrix (int8 matmul).
 
 `matmul_mod` (ops/matmul_mod.py) digitizes both operands, which costs
 nd_a x nd_b small matmuls plus one Montgomery recombination per digit-weight
@@ -14,7 +14,7 @@ balanced digits of W along the output axis:
 
     (W @ x) mod q = sum_i 2^(8i) * ( [Wd_i | over j] @ [x digits | over j] )
 
-so the whole j-sum rides INSIDE one MXU contraction and all nd_w digit
+so the whole j-sum rides INSIDE one int8 contraction and all nd_w digit
 accumulators come out of ONE int8 matmul (vs nd_a x nd_b separate matmuls
 when both operands are digitized, ops/matmul_mod.py).
 
@@ -30,10 +30,10 @@ acc < 0 (s = 1); with R = 2^32 the fix constant 2^(32+8i) mod q IS the
 Montgomery weight, so one conditional subtraction of weights_mont restores
 the exact value.
 
-This is the TPU-native replacement for the per-element multiply loops the
-reference runs on GPU/OpenMP (rfhe_framewk/src/four_step_ntt_protected.cpp:
-109-137 `matmul_mod`, baseConv.cu:85-120 `crt_kernel`): the FLOPs move onto
-the systolic array, exactly, with the mod-q algebra done once per output.
+This replaces the per-element multiply loops the reference runs on
+GPU/OpenMP (rfhe_framewk/src/four_step_ntt_protected.cpp:109-137
+`matmul_mod`, baseConv.cu:85-120 `crt_kernel`): the multiplies move into
+one exact integer matmul, with the mod-q algebra done once per output.
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ _WB = 8          # constant digit width (balanced base 256)
 
 
 def _choose_xb(qbits: int, k: int) -> int:
-    """Pick the data-digit width: smallest digit count first (fewest MXU
+    """Pick the data-digit width: smallest digit count first (fewest int8
     MACs), then the narrowest digits at that count (headroom to keep the
     int32 pairwise recombination exact, halving the Montgomery work)."""
     best = None
@@ -59,8 +59,8 @@ def _choose_xb(qbits: int, k: int) -> int:
         if K * ((1 << xb) - 1) * 128 >= (1 << 31):
             continue                     # unpaired int32 overflow: unusable
         pair_ok = K * ((1 << xb) - 1) * 128 * 257 < (1 << 31)
-        # cost model (measured on v5e): one MXU digit-pass ~0.15 of one
-        # Montgomery recombination group
+        # cost model (inherited; not measured on the GPU): one int8
+        # digit-pass ~0.15 of one Montgomery recombination group
         groups = -(-4 // 2) if pair_ok else 4    # nd_w≈4 for 30-bit primes
         cost = nd_x * 0.15 + groups
         if best is None or cost < best[0]:
@@ -172,7 +172,7 @@ class ConstMatPlan:
         for gi, i in enumerate(groups):
             for l, q in enumerate(primes):
                 wmont[gi, l] = ((1 << (_WB * i)) * R) % q
-        # stack digit blocks along the output axis: one MXU matmul total
+        # stack digit blocks along the output axis: one int8 matmul total
         if side == "left":
             Wd2 = Wd.transpose(1, 0, 2, 3).reshape(L, nd_w * m, nd_x * k)
         else:
@@ -201,7 +201,7 @@ class ConstMatPlan:
         return list(range(0, self.nd_w, step))
 
     def digit_groups(self, x: jnp.ndarray):
-        """The MXU part: digitize x, one int8 einsum against the stacked
+        """The matmul part: digitize x, one int8 einsum against the stacked
         constant, return the int32 partial accumulators per recombination
         group (pairs pre-combined in int32).  Group g carries weight
         2^(8*group_starts[g]).
@@ -210,7 +210,7 @@ class ConstMatPlan:
         right: x (..., L, c, k) -> groups (..., L, c, m)
 
         Data keeps its (..., L, row, col) layout throughout — the einsum
-        contracts in place and XLA folds any operand transpose into the MXU
+        contracts in place and XLA folds any operand transpose into the matmul
         pass, so no materialized layout change happens outside the matmul.
         """
         axis = -2 if self.side == "left" else -1

@@ -12,7 +12,7 @@ overflow count e a robust f32 round (margin 1/4 ≫ k·2^-24 float error ≫
 |x|/Q) — the same e-recovery problem the BEHZ conversions solve with m̃,
 solved here with an additive offset because x is known-small.
 
-Exact for |x| < 2^62.  TPU-native counterpart of the exact Garner CRT the
+Exact for |x| < 2^62.  Device counterpart of the exact Garner CRT the
 reference runs per-element in CUDA (rfhe_framewk/src/baseConv.cu:85-120).
 """
 from __future__ import annotations

@@ -1,16 +1,16 @@
-"""Exact modular matrix multiply on the TPU MXU via digit decomposition.
+"""Exact modular matrix multiply via digit decomposition.
 
 The FLOP-heavy pieces of the framework — four-step NTT stages, RNS base
-conversion, BSGS diagonal matvecs — are all modular matmuls.  The MXU has no
-integer-mod datapath, so we decompose u32 residues into small digits, do the
-digit-pair matmuls exactly on the MXU (int8->int32 accumulate, or f32 for
-short contractions), and recombine partial sums with Montgomery-weighted
-adds on the VPU.
+conversion, BSGS diagonal matvecs — are all modular matmuls.  Matrix units
+have no integer-mod datapath, so we decompose u32 residues into small
+digits, do the digit-pair matmuls exactly (int8->int32 accumulate, or f32
+for short contractions), and recombine partial sums with
+Montgomery-weighted elementwise adds.
 
 This replaces the reference's per-element CUDA/OpenMP loops
 (rfhe_framewk/src/four_step_ntt_protected.cpp:109-137 matmul_mod,
-baseConv.cu:85-120 crt_kernel) with a design that puts the work where the
-TPU's FLOPs are.
+baseConv.cu:85-120 crt_kernel) with a design that puts the work into
+integer matmuls.
 
 Exactness bounds:
   int8 path: digit base 2^7 (digits in [0,127]); partial sums bounded by
@@ -23,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -80,7 +81,9 @@ def _digits(x: jnp.ndarray, plan: DigitPlan) -> List[jnp.ndarray]:
 def _digit_matmul(a: jnp.ndarray, b: jnp.ndarray, path: str) -> jnp.ndarray:
     if path == "int8":
         return jnp.matmul(a, b, preferred_element_type=jnp.int32)
-    p = jnp.matmul(a, b, preferred_element_type=jnp.float32)
+    # HIGHEST: a GPU would otherwise run an f32 matmul in TF32
+    p = jnp.matmul(a, b, preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST)
     return p.astype(jnp.int32)
 
 

@@ -1,7 +1,7 @@
 """ModArith: bundled modular-arithmetic context for one prime q < 2^31.
 
 Thin convenience layer over ops.u32 providing overflow-safe reductions
-(sums/dots mod q via halving trees — TPU-friendly log-depth reductions that
+(sums/dots mod q via halving trees — log-depth reductions that
 never leave uint32).
 """
 from __future__ import annotations
@@ -53,9 +53,9 @@ def sum_mod(x: jnp.ndarray, q, axis: int = -1) -> jnp.ndarray:
     folded mod q with two per-limb Montgomery products —
     S mod q = mont(s_hi, 2^48 mod q) + mont(s_lo, 2^32 mod q).  This
     replaces the log-depth halving tree, whose 12 sliced add_mod levels per
-    call dominated the protected evaluator's checksum overhead (round-5
-    ablation: baseconv ECC +44 us, lift checksum +33 us at n=4096 — almost
-    entirely small-op launch cost).  Traced q falls back to the tree."""
+    call dominated the protected evaluator's checksum overhead (an earlier
+    ablation on the previous accelerator found it almost entirely small-op
+    launch cost).  Traced q falls back to the tree."""
     x = jnp.moveaxis(x, axis, -1)
     n = x.shape[-1]
     q_conc = None

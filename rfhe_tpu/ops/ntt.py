@@ -1,7 +1,7 @@
 """Single-chip NTT/INTT kernels (jnp formulation; Pallas fused variant in
 pallas_ntt.py builds on the same plan).
 
-Design (TPU-first, not a port):
+Design (a rebuild, not a port):
   * DIF (decimation-in-frequency) forward with natural-order input and
     bit-reversed output; DIT inverse consumes bit-reversed and emits natural.
     Each stage is a reshape + slice + vectorized Shoup butterfly — no gathers,

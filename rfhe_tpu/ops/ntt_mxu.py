@@ -1,14 +1,13 @@
-"""Four-step negacyclic NTT on the MXU (the production TPU path).
+"""Four-step negacyclic NTT as two int8-digit matmuls (the production path).
 
 An n-point NTT factors as n2 column-NTTs + twiddle + n1 row-NTTs
 (n = n1*n2; the reference's flagship pipeline,
 rfhe_framewk/src/ntt_test/relia_ntt_sim.py:223-278 and
 reliability_test/four_step_ntt_prot.py:71-109).  Both NTT stages are dense
-modular matmuls, which is exactly what the TPU's systolic array wants:
-instead of (n/2)·log2 n serial butterfly sweeps on the VPU with an HBM
-round-trip per stage (ops/ntt_pease.py), we do two int8-digit MXU matmuls
-(ops/const_matmul.py) with contraction ~5·sqrt(n).  Everything else folds
-into constant tables:
+modular matmuls: instead of (n/2)·log2 n elementwise butterfly sweeps with
+a device-memory round-trip per stage (ops/ntt_pease.py), we do two
+int8-digit integer matmuls (ops/const_matmul.py) with contraction
+~5·sqrt(n).  Everything else folds into constant tables:
 
   negacyclic twist  ψ^t = ψ^(t1) · ψ^(n1·t2):  the t2 factor multiplies the
     stage-1 matrix columns, the t1 factor multiplies the twiddle table —
@@ -43,10 +42,8 @@ Bit-exact vs the Pease pipeline up to slot order (tests/test_ntt_mxu.py).
 """
 from __future__ import annotations
 
-import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from functools import lru_cache
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -57,80 +54,6 @@ from .const_matmul import ConstMatPlan
 from .u32 import add_mod, mont_mul, sub_mod
 
 __all__ = ["MxuNttPlan"]
-
-# The fused Pallas kernel (ops/ntt_fused.py) runs the whole four-step
-# pipeline in one VMEM pass on TPU; RFHE_TPU_FUSED_NTT=0 falls back to the
-# XLA composition below (always used on CPU, where Mosaic isn't available).
-# Default ON: device-validated bit-exact vs the XLA path at n=4096/16384/
-# 65536 across block sizes (2026-08, v5e; see ops/ntt_fused.py header) and
-# 2.1-2.5x faster (results/roofline_*.csv).
-_FUSED_ENABLED = os.environ.get("RFHE_TPU_FUSED_NTT", "1") == "1"
-
-
-def _use_fused() -> bool:
-    return _FUSED_ENABLED and jax.default_backend() == "tpu"
-
-
-def _validate_fused(plan_xla: "MxuNttPlan", fused, qs) -> bool:
-    """Device self-validation gate for the fused Pallas kernel: compare
-    fused forward+inverse against the XLA composition at plan build (eager,
-    outside jit) and keep the kernel only on a bit-exact match.
-
-    History: this gate caught a real kernel bug — the inverse used the
-    FORWARD twiddle table's digit-group count for its BlockSpec, reading
-    past the block whenever the inverse big stage needed more weight digits
-    (31-bit primes at n2 ∉ {32,128,256}); fixed in ops/ntt_fused.py:_call.
-    The gate stays as defense-in-depth against genuine Mosaic miscompiles:
-    every plan proves its own kernel once at build.  Three vectors per
-    direction, including adversarial extremes (all q-1 maximizes every
-    partial product / carry path; a lone q-1 spike exercises the twiddle
-    recombination at a single max magnitude) — data-dependent overflow bugs
-    that one random vector can miss (round-3 advisor finding).
-
-    A mismatch falls back to the XLA path (both are bit-exact, so this is
-    perf-only) UNLESS RFHE_TPU_FUSED_STRICT=1, which raises — used by the
-    committed shape-grid audit (bench/fused_validate.py) so regressions
-    fail loudly on TPU instead of silently downgrading."""
-    n = plan_xla.n
-    rng = np.random.default_rng(0xF5ED)
-    qarr = np.asarray(qs, dtype=np.uint32)
-    vecs = []
-    vecs.append(np.stack([rng.integers(0, q, n, dtype=np.uint32) for q in qs]))
-    vecs.append(np.broadcast_to((qarr - 1)[:, None], (len(qs), n)).copy())
-    spike = np.zeros((len(qs), n), dtype=np.uint32)
-    spike[:, 0] = qarr - 1
-    spike[:, n // 2] = 1
-    vecs.append(spike)
-
-    def fail(direction: str) -> bool:
-        msg = (f"fused NTT {direction} mismatch at n={n}; "
-               "falling back to the XLA path for this plan")
-        if os.environ.get("RFHE_TPU_FUSED_STRICT", "0") == "1":
-            raise AssertionError(msg)
-        import warnings
-        warnings.warn(msg)
-        return False
-
-    for v in vecs:
-        x = jnp.asarray(v)
-        y_ref = plan_xla.fwd(x)
-        try:
-            fwd_ok = bool(jnp.array_equal(fused.fwd(x), y_ref))
-            inv_ok = fwd_ok and bool(
-                jnp.array_equal(fused.inv(y_ref), plan_xla.inv(y_ref)))
-        except Exception as e:  # Mosaic compile failure (e.g. VMEM OOM at
-            # n=65536 with 5-weight-digit 31-bit tables) — a capacity
-            # boundary, not a correctness bug: fall back even under STRICT
-            import warnings
-            warnings.warn(f"fused NTT kernel failed to compile at "
-                          f"n={n}: {type(e).__name__}; using the XLA path")
-            return False
-        if not fwd_ok:
-            return fail("fwd")
-        if not inv_ok:
-            return fail("inv")
-    return True
-
 
 def _pow_table(base: int, count: int, q: int) -> np.ndarray:
     out = np.empty(count, dtype=np.uint64)
@@ -160,7 +83,6 @@ class MxuNttPlan:
     Ui: jnp.ndarray                # (Gi, L, n2, n1) folded inv twiddle weights
     nu: np.ndarray                 # slot p -> NTT coefficient index
     nu_inv: np.ndarray
-    fused: Optional[object] = field(default=None, compare=False)  # FusedNtt
 
     @classmethod
     def make(cls, n: int, primes) -> "MxuNttPlan":
@@ -168,10 +90,11 @@ class MxuNttPlan:
         L = len(primes)
         log_n = n.bit_length() - 1
         assert (1 << log_n) == n and n >= 4
-        # split rule: balanced minimizes MACs (∝ n1+n2), but the last axis
-        # must fill the TPU's 128-wide lanes — VPU ops on a 64-wide last dim
-        # run at half rate (measured 2.5x on v5e).  So n1 >= 128 when n
-        # allows, balanced beyond that.
+        # split rule: balanced minimizes MACs (∝ n1+n2), with n1 >= 128 when
+        # n allows.  The 128 floor is inherited from the first accelerator
+        # target (a 128-wide last axis); it is not measured on the GPU.  It
+        # stays because the split fixes the slot order (nu) that galois
+        # permutations, keys and serialized slots depend on.
         n1 = 1 << (log_n // 2)
         if n1 < 128:
             n1 = min(128, 1 << (log_n - 1))
@@ -240,29 +163,12 @@ class MxuNttPlan:
         nu_inv[nu] = p
         s2 = ConstMatPlan.make(W1Tf, qs, qinvs, side="right")
         s2i = ConstMatPlan.make(W2if, qs, qinvs, side="left")
-        Uf_j = jnp.asarray(folded(Tf, s1))
-        Ui_j = jnp.asarray(folded(Ti, s1i))
-        from .ntt_fused import FusedNtt
-        fused = FusedNtt.make(n, n1, n2, s1, s2, Uf_j, s1i, s2i, Ui_j, qs)
-        plan = cls(
-            n=n, n1=n1, n2=n2,
-            q_arr=jnp.asarray(q_arr), qinv_arr=jnp.asarray(qinv_arr),
-            s1=s1, s2=s2,
-            Uf=Uf_j,
-            s1i=s1i, s2i=s2i,
-            Ui=Ui_j,
-            nu=nu, nu_inv=nu_inv, fused=None,
-        )
-        # On TPU the kernel must prove itself once per plan (see
-        # _validate_fused); on CPU it stays attached for the interpret-mode
-        # tests but is never dispatched (_use_fused is False there).
-        if _use_fused() and not _validate_fused(plan, fused, qs):
-            return plan
         return cls(
             n=n, n1=n1, n2=n2,
-            q_arr=plan.q_arr, qinv_arr=plan.qinv_arr,
-            s1=s1, s2=s2, Uf=Uf_j, s1i=s1i, s2i=s2i, Ui=Ui_j,
-            nu=nu, nu_inv=nu_inv, fused=fused,
+            q_arr=jnp.asarray(q_arr), qinv_arr=jnp.asarray(qinv_arr),
+            s1=s1, s2=s2, Uf=jnp.asarray(folded(Tf, s1)),
+            s1i=s1i, s2i=s2i, Ui=jnp.asarray(folded(Ti, s1i)),
+            nu=nu, nu_inv=nu_inv,
         )
 
     # ---- PeaseNttPlan protocol ------------------------------------------
@@ -290,7 +196,6 @@ class MxuNttPlan:
             s1=self.s1.take(idx), s2=self.s2.take(idx), Uf=self.Uf[:, idx],
             s1i=self.s1i.take(idx), s2i=self.s2i.take(idx),
             Ui=self.Ui[:, idx], nu=self.nu, nu_inv=self.nu_inv,
-            fused=self.fused.take(idx) if self.fused is not None else None,
         )
 
     def _twiddle_recombine(self, groups, U, qb, qinvb):
@@ -309,11 +214,7 @@ class MxuNttPlan:
     def fwd(self, x: jnp.ndarray) -> jnp.ndarray:
         """Negacyclic forward NTT: x (..., L, n) plain coeffs ->
         (..., L, n) slots (order nu) in Montgomery form.  Transpose-free:
-        both stages contract in the (..., L, n2, n1) layout.  On TPU the
-        fused single-HBM-pass Pallas kernel (ops/ntt_fused.py) runs instead;
-        both are bit-exact."""
-        if self.fused is not None and _use_fused():
-            return self.fused.fwd(x)
+        both stages contract in the (..., L, n2, n1) layout."""
         n, n1, n2 = self.n, self.n1, self.n2
         shape = x.shape
         A = x.reshape(shape[:-1] + (n2, n1))                 # A[t2, t1]
@@ -328,8 +229,6 @@ class MxuNttPlan:
 
     def inv(self, y: jnp.ndarray) -> jnp.ndarray:
         """Inverse: slots (order nu, Montgomery) -> plain coeffs."""
-        if self.fused is not None and _use_fused():
-            return self.fused.inv(y)
         n, n1, n2 = self.n, self.n1, self.n2
         shape = y.shape
         Y = y.reshape(shape[:-1] + (n2, n1))                 # Y[k2, k1]

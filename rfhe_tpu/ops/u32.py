@@ -1,7 +1,8 @@
-"""Vectorized 32-bit modular arithmetic in jnp.uint32 (VPU path).
+"""Vectorized 32-bit modular arithmetic in jnp.uint32 (elementwise path).
 
-TPUs have no native 64-bit integer ALU, so 32x32->64 products are emulated
-with 16-bit half-words, and general modmuls use Montgomery (R = 2^32) while
+32x32->64 products are emulated with 16-bit half-words (inherited from an
+accelerator without 64-bit integer multiplies; a GPU has a widening
+multiply, ROADMAP.md design debt 3), and general modmuls use Montgomery (R = 2^32) while
 constant mults (twiddles, psi powers) use Shoup precomputation — the same
 trick the reference's GPU substrate uses for root powers
 (reliability_test/ntt_test.cu:40-69).

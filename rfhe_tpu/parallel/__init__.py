@@ -1,4 +1,4 @@
 """Mesh / multi-host helpers (SURVEY §2.6: the scale-out layer the reference
-lacks).  ICI collectives live in transform/distributed.py; this module owns
+lacks).  Collectives live in transform/distributed.py; this module owns
 mesh construction and DCN multi-host initialization."""
 from .mesh import make_mesh, make_mesh_2d, init_multihost  # noqa: F401

@@ -2,7 +2,7 @@
 
 Axis conventions across the framework:
   "limb"  RNS residue channels (DP analog; CUDA batch axis in the reference)
-  "fft"   the four-step t1 axis (SP analog; all_to_all transposes ride ICI)
+  "fft"   the four-step t1 axis (SP analog; all_to_all transposes between devices)
 """
 from __future__ import annotations
 
@@ -30,8 +30,9 @@ def make_mesh_2d(limb: int, fft: int, axes=("limb", "fft")):
 def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None) -> None:
-    """Initialize jax.distributed over DCN for multi-host pods.  With no
-    arguments, relies on the TPU environment's auto-detection."""
+    """Initialize jax.distributed for a multi-process run.  Pass the
+    coordinator address (e.g. "localhost:<port>"), process count and id:
+    nothing in a plain GPU host tells JAX of a cluster."""
     import jax
     if coordinator_address is None:
         jax.distributed.initialize()

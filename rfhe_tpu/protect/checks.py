@@ -206,7 +206,7 @@ def mont_mul_checked(a: jnp.ndarray, b: jnp.ndarray, qb, qinvb,
     independent folded re-multiplication.  Returns (out, ok) elementwise.
 
     s=16 default: halves the fold chunk count vs the reference's narrower
-    widths (cheapest on the VPU — each chunk is shift+mask+add) AND drops
+    widths (cheapest elementwise — each chunk is shift+mask+add) AND drops
     the collision bound to ~1/(2^16+1) (the fold-width ramp of
     barrett_final.py gets strictly better with wider s)."""
     qb = jnp.asarray(qb, dtype=jnp.uint32)

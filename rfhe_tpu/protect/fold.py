@@ -1,4 +1,4 @@
-"""Device fold checksums (VPU): x mod (2^W - 1) and the alternating fold
+"""Device fold checksums (elementwise): x mod (2^W - 1) and the alternating fold
 x mod (2^s + 1), for u32 values and (hi, lo) u64 pairs.
 
 These are the workhorse residue codes of the reference's detector layer

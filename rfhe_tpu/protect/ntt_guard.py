@@ -1,4 +1,4 @@
-"""End-to-end ABFT projection guard for the production MXU NTT.
+"""End-to-end ABFT projection guard for the production NTT.
 
 The reference's four-step protections check each stage of a simulator NTT
 (rfhe_framewk/src/ntt_test/relia_ntt_sim.py:179-219); its *production*

@@ -1,4 +1,4 @@
-"""L2: four-step NTT transforms (single-chip MXU + mesh-sharded)."""
+"""L2: four-step NTT transforms (single-device matmul form + mesh-sharded)."""
 from .four_step import (  # noqa: F401
     FourStepPlan,
     four_step_ntt,

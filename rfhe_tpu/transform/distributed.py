@@ -2,11 +2,11 @@
 
 The n2×n1 coefficient matrix shards its t1 (column) axis over the mesh:
 stage-1 column NTTs and the twiddle multiply are embarrassingly local; the
-stage-1→stage-2 transpose is ONE `all_to_all` over ICI; stage-2 row NTTs are
+stage-1→stage-2 transpose is ONE `all_to_all` between devices; stage-2 row NTTs are
 local again.  Checksums reduce with `all_gather`+tree-sum (exact mod-q sums;
 a raw psum could overflow uint32).
 
-This is the TPU-native replacement for what the reference lacks entirely
+This is the counterpart of what the reference lacks entirely
 (SURVEY.md §2.6: reference parallelism = OpenMP trials + CUDA batching); the
 structural analog in the reference is the four-step factorization itself
 (reliability_test/four_step_ntt_prot.py:71-109), which we distribute the way
@@ -77,7 +77,7 @@ def four_step_ntt_sharded(x: jnp.ndarray, plan: FourStepPlan, mesh: Mesh,
         # xm: (..., n2, n1/D) local block
         B = matmul_mod(plan.W2, xm, plan.digit)
         B = mul_mod_shoup(B, T, Ts, plan.q)
-        # transpose over ICI: split n2, concat n1 -> (..., n2/D, n1)
+        # transpose between devices: split n2, concat n1 -> (..., n2/D, n1)
         B = jax.lax.all_to_all(B, axis, split_axis=B.ndim - 2,
                                concat_axis=B.ndim - 1, tiled=True)
         Y = matmul_mod(B, plan.W1T, plan.digit)

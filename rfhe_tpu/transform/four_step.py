@@ -1,4 +1,4 @@
-"""Four-step NTT as batched MXU matmuls (single-chip; mesh version in
+"""Four-step NTT as batched modular matmuls (single-chip; mesh version in
 transform/distributed.py).
 
   a[t1 + n1*t2]  →  A[t2, t1]                (reshape, no data movement)
@@ -10,7 +10,7 @@ transform/distributed.py).
 This is the reference's flagship protected pipeline
 (rfhe_framewk/src/ntt_test/relia_ntt_sim.py:223-278,
 reliability_test/four_step_ntt_prot.py:71-109) re-shaped so that both NTT
-stages are dense modular matmuls riding the MXU (ops/matmul_mod.py), and the
+stages are dense modular matmuls (ops/matmul_mod.py), and the
 twiddle stage is a vectorized Shoup multiply — exactly the three-stage
 matmul→elementwise→matmul structure the reference's checksum algebra
 protects (four_step_ntt_protected.py:219-281).

@@ -1,8 +1,8 @@
-"""Mesh-sharded PRODUCTION four-step NTT (MxuNttPlan over ICI).
+"""Mesh-sharded PRODUCTION four-step NTT (MxuNttPlan over a device mesh).
 
 transform/distributed.py shards the demo FourStepPlan; this module shards
 the kernel class the scheme layer actually runs (ops/ntt_mxu.MxuNttPlan:
-int8-digit MXU matmuls with folded twiddle recombination), so the mesh
+int8-digit matmuls with folded twiddle recombination), so the mesh
 story and the single-chip perf story are the same code path (round-3
 verdict weak #7).
 
@@ -11,14 +11,14 @@ Layout.  The (..., L, n) data is viewed as (..., L, n2, n1).
   forward:  input shards t1 (the n1 axis) over `axis`.  Stage 1 (contract
             n2, left int8 matmul + per-element folded-twiddle Shoup
             recombination) is local per column block; the stage boundary
-            is ONE all_to_all over ICI (split n2, concat n1); stage 2
+            is ONE all_to_all between devices (split n2, concat n1); stage 2
             (contract n1, right matmul) is local.  Output shards k2 —
             contiguous slabs of n1·(n2/D) slots.
   inverse:  mirror image: input shards k2, contract k1 locally, twiddle,
             all_to_all back, contract k2 locally; output shards t1.
 
 A fwd → pointwise → inv pipeline therefore does exactly TWO all_to_all
-transposes total and every matmul stays the same MXU shape as the
+transposes total and every matmul stays the same shape as the
 single-chip plan.  Bit-exact vs MxuNttPlan.fwd/inv (tests/test_mxu_sharded
 on an 8-device CPU mesh).
 

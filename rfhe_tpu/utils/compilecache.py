@@ -1,28 +1,44 @@
 """Persistent XLA compilation cache for the benchmark / campaign drivers
-(VERDICT round-2 item #9: BGV N=16384 dotprod took 611 s to build cold;
-reference-scale sweeps recompile the same programs every run).
+(the BGV N=16384 dot product takes minutes to build cold; sweeps recompile
+the same programs every run).
 
 JAX's persistent cache keys on (HLO, compile options, backend version), so
-re-running a sweep with unchanged shapes loads the compiled executable from
+re-running a benchmark with unchanged shapes loads the compiled executable from
 disk instead of rebuilding it.  Call once at driver startup; tests don't
 need it (CPU compiles are cheap and the cache would churn).
+
+Where the cache lives:
+  * JAX_COMPILATION_CACHE_DIR set: JAX reads it itself; this module sets no
+    other directory.
+  * unset: one fixed directory inside the checkout, `<repo>/.jax_cache/`
+    (git-ignored).  The path is part of what makes a later run hit, so it is
+    never temporary, per-process or time-stamped.
 """
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "rfhe_tpu_xla")
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+REPO_CACHE_DIR = str(Path(__file__).resolve().parents[2] / ".jax_cache")
 
 
-def enable_compilation_cache(path: str | None = None) -> str:
-    """Enable JAX's persistent compilation cache (idempotent)."""
+def cache_dir() -> str:
+    """The directory the persistent cache uses (env var, else the fixed
+    in-checkout path)."""
+    return os.environ.get(ENV_VAR) or REPO_CACHE_DIR
+
+
+def enable_compilation_cache() -> str:
+    """Enable JAX's persistent compilation cache (idempotent); returns the
+    directory in use."""
     import jax
 
-    cache_dir = path or os.environ.get("RFHE_TPU_CACHE_DIR", _DEFAULT_DIR)
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    path = cache_dir()
+    os.makedirs(path, exist_ok=True)
+    if not os.environ.get(ENV_VAR):
+        jax.config.update("jax_compilation_cache_dir", path)
     # cache everything that took noticeable compile time
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    return cache_dir
+    return path

@@ -5,15 +5,14 @@
      runs N = 32768 / 21 limbs; draw_rotation.py:59 sweeps to 65536).
   2. BGV encrypted dot product at N = 16384 — the reference's real-GPU
      campaign config (reliability_test/dotprod_test.cu:198-204: N = 16384,
-     6 x 50-bit limbs, 20-bit plain modulus).  The TPU-native chain uses
-     10 x 30-bit limbs (same ~300-bit modulus budget): the MXU's exact
+     6 x 50-bit limbs, 20-bit plain modulus).  This framework's chain uses
+     10 x 30-bit limbs (same ~300-bit modulus budget): the exact
      int8-digit path favors more narrow limbs over fewer wide ones — see
      PARITY.md "limb width".
 
 These run at full size (minutes of XLA compile on CPU), so they are gated
-behind RFHE_RUN_SLOW=1; the driver's bench artifacts (results/northstar.csv,
-produced on the real TPU by rfhe_tpu.bench.northstar) carry the measured
-evidence.
+behind RFHE_RUN_SLOW=1; on the GPU, `python chip_smoke.py` runs both
+shapes (BGV at the N its time limit allows; PERF.md).
 """
 import os
 

@@ -1,12 +1,14 @@
-"""Bit-exactness of the MXU production NTT path (ops/const_matmul.py +
+"""Bit-exactness of the production NTT path (ops/const_matmul.py +
 ops/ntt_mxu.py) against the host oracle and the Pease pipeline.
 
-The MXU plan is the TPU-native analog of the batched radix-8 device NTT the
-reference rides (reliability_test/ntt_test.cu:95) — same role (the hot
-transform under every scheme op), different hardware mapping (four-step as
-int8-digit systolic matmuls, reliability_test/four_step_ntt_prot.py:71-109
-is the algorithmic model).
+The plan plays the role of the batched radix-8 device NTT the reference
+rides (reliability_test/ntt_test.cu:95) — same role (the hot transform
+under every scheme op), different mapping (four-step as int8-digit
+matmuls, reliability_test/four_step_ntt_prot.py:71-109 is the algorithmic
+model).
 """
+from functools import lru_cache
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -136,3 +138,44 @@ def test_dispatch_through_ntt_pease_module():
     assert (np.asarray(ntt_pease.negacyclic_intt(y, mp)) ==
             np.asarray(x)).all()
     assert (ntt_pease.galois_perm(mp, 5) == mp.galois_perm(5)).all()
+
+
+@lru_cache(maxsize=None)
+def _plans(n, bits):
+    primes = find_ntt_primes(n, bits, 3)
+    return primes, MxuNttPlan.make(n, primes), ntt_pease.PeaseNttPlan.make(
+        n, primes)
+
+
+def _vectors(kind, primes, n):
+    """(3, L, n) batch of one adversarial kind: random draws, all q-1 (every
+    partial product and carry at its maximum), or a lone q-1 spike."""
+    qarr = np.asarray(primes, dtype=np.uint32)[:, None]
+    rng = np.random.default_rng(6)
+    if kind == "random":
+        return np.stack([np.concatenate([rng.integers(0, q, (1, n),
+                                                      dtype=np.uint32)
+                                         for q in primes])
+                         for _ in range(3)])
+    if kind == "all_q_minus_1":
+        return np.broadcast_to(qarr - 1, (3, len(primes), n)).copy()
+    x = np.zeros((3, len(primes), n), dtype=np.uint32)
+    for b, pos in enumerate((0, n // 2, n - 1)):
+        x[b, :, pos] = (qarr - 1)[:, 0]
+    return x
+
+
+@pytest.mark.parametrize("kind", ["random", "all_q_minus_1", "spike"])
+@pytest.mark.parametrize("bits", [30, 31])
+@pytest.mark.parametrize("n", [256, 4096])
+def test_mxu_ntt_adversarial(n, bits, kind):
+    """fwd equals the Pease NTT through nu and inv round-trips, bit-exact,
+    on the extreme inputs that data-dependent overflow bugs need."""
+    primes, mp, pp = _plans(n, bits)
+    x = _vectors(kind, primes, n)
+    ym = np.asarray(mp.fwd(jnp.asarray(x)))
+    yp = np.asarray(ntt_pease.negacyclic_ntt(jnp.asarray(x), pp))
+    nat = np.empty_like(yp)
+    nat[..., pp.nu] = yp
+    assert (ym == nat[..., mp.nu]).all()
+    assert (np.asarray(mp.inv(jnp.asarray(ym))) == x).all()
